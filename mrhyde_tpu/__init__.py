@@ -1,4 +1,4 @@
-"""mrhyde_tpu — a TPU-native multiphysics finite-element framework.
+"""mrhyde_tpu — a multiphysics finite-element framework in JAX.
 
 A ground-up JAX/XLA re-design of the capabilities of MrHyDE
 (Sandia's Multi-resolution Hybridized Differential Equations framework,
@@ -12,11 +12,10 @@ reference: /root/reference/src/driver.cpp:1-7):
 - Monte-Carlo UQ and data-consistent inversion
 - two-level multiscale (subgrid) solves
 
-Architecture (TPU-first, not a port):
+Architecture (a redesign, not a port):
 - element kernels are pure functions vmapped over element batches; the
-  basis-contraction hot loop maps onto the MXU via batched einsum /
-  Pallas kernels (reference: Kokkos parallel_for in e.g.
-  src/physics/thermal.cpp:124-127)
+  basis contractions are batched einsums that XLA fuses (reference:
+  Kokkos parallel_for in e.g. src/physics/thermal.cpp:124-127)
 - element Jacobians come from jax.jacfwd of the per-element residual
   (reference: Sacado SFad seeding, src/tools/workset.cpp:559)
 - gather/scatter is index-gather + segment-sum (deterministic; reference:

@@ -35,9 +35,8 @@ def _dense_rowfix(J):
     dependence on fixed dofs needed for exact adjoints.)
     """
     n = J.n_dof
-    vol = J.aos()
-    A = jnp.zeros((n, n), dtype=vol.dtype)
-    A = A.at[J.vol_lids[:, :, None], J.vol_lids[:, None, :]].add(vol)
+    A = jnp.zeros((n, n), dtype=J.vol.dtype)
+    A = A.at[J.vol_lids[:, :, None], J.vol_lids[:, None, :]].add(J.vol)
     for blocks, lids in zip(J.bnd, J.bnd_lids):
         A = A.at[lids[:, :, None], lids[:, None, :]].add(blocks)
     A = jnp.where(J.fixed[:, None], 0.0, A)

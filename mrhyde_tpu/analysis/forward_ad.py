@@ -1,6 +1,6 @@
 """Differentiable forward model: J(p) and dJ/dp by jax.grad.
 
-This is the TPU-native replacement for the reference's
+This is the JAX replacement for the reference's
 forward+adjoint analysis (reference: src/managers/analysisManager.cpp
 forwardSolve/adjointSolve; SURVEY.md section 3.3): the entire forward —
 initial condition, every time stage (as an implicit-function

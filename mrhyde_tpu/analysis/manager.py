@@ -1,6 +1,6 @@
 """Analysis-mode dispatch: forward / forward+adjoint / UQ / ROL / DCI.
 
-TPU-native analog of AnalysisManager (reference:
+JAX analog of AnalysisManager (reference:
 src/managers/analysisManager.cpp:62-95 run, :269 UQSolve, :417 ROLSolve,
 :798 DCISolve, :831 restartSolve).
 """
@@ -78,7 +78,7 @@ class AnalysisManager:
                      for g in asm._bnd) / 1e6
         lines.append(f" - {vol_mb:.4g} MB of volumetric data")
         lines.append(f" - {bnd_mb:.4g} MB of boundary data")
-        lines.append(" **** MrHyDE-TPU has completed the dry run")
+        lines.append(" **** MrHyDE has completed the dry run")
         report = "\n".join(lines)
         print(report)
         return report

@@ -1,6 +1,6 @@
 """PDE-constrained optimization: L-BFGS-B style bound-constrained solver.
 
-TPU-native replacement for the reference's ROL/ROL2 adapters
+JAX replacement for the reference's ROL/ROL2 adapters
 (reference: src/managers/analysisManager.cpp:417-630 ROLSolve,
 src/optimization/MrHyDE_Objective.hpp): value = forward objective,
 gradient = jax.grad through the differentiable forward

@@ -1,6 +1,6 @@
 """Parameter management: inactive / active / stochastic / discretized.
 
-TPU-native analog of the reference ParameterManager (reference:
+JAX analog of the reference ParameterManager (reference:
 src/managers/parameterManager.cpp:154-204 setupParameters; AD seeding
 via sacadoizeParams). There is no seeding step here: active parameters
 form a pytree `pvec` that flows into the traced residual, and

@@ -1,6 +1,6 @@
 """UQ: Monte-Carlo sampling, moments, KDE, rejection sampling.
 
-TPU-native analog of UQManager (reference: src/managers/uqManager.cpp:
+JAX analog of UQManager (reference: src/managers/uqManager.cpp:
 53-140 generateSamples, :249 KDE, rejectionSampling hpp:147) and the
 UQSolve loop (analysisManager.cpp:269-415). Sampling is seeded and
 per-distribution like the reference; the ensemble can additionally be

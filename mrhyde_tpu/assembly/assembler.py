@@ -1,6 +1,6 @@
 """Assembler: residuals and Jacobians over batched elements.
 
-TPU-native replacement for the reference AssemblyManager's hot path
+JAX replacement for the reference AssemblyManager's hot path
 (reference: src/managers/assemblyManager.cpp — performGather :3441, AD
 seeding via workset.cpp:559, physics volumeResidual, atomic scatter
 :3943/:3882, AD-type dispatch :2045):
@@ -21,7 +21,7 @@ assemblyManager.cpp:3963, updateJacDBC).
 
 from __future__ import annotations
 
-from dataclasses import dataclass, field, replace
+from dataclasses import dataclass
 from functools import partial
 
 import jax
@@ -48,12 +48,6 @@ class TimeCoeffs:
     beta_t: jax.Array
     time: jax.Array
     deltat: jax.Array
-    # STATIC steadiness marker: under jit every field above is a
-    # tracer, so "alpha_u == 1 and beta == 0" cannot be checked at
-    # trace time — without this flag the fused kernel would always
-    # build its transient variant (3 DMA slabs instead of 1)
-    is_steady: bool = field(default=False,
-                            metadata=dict(static=True))
 
     @staticmethod
     def steady(n_dof, time=0.0, dtype=jnp.float64):
@@ -61,7 +55,7 @@ class TimeCoeffs:
         one = jnp.asarray(1.0, dtype=dtype)
         zero = jnp.asarray(0.0, dtype=dtype)
         return TimeCoeffs(one, z, zero, z, jnp.asarray(time, dtype=dtype),
-                          one, is_steady=True)
+                          one)
 
 
 @jax.tree_util.register_dataclass
@@ -69,96 +63,27 @@ class TimeCoeffs:
 class BlockJacobian:
     """Element-block Jacobian consumed matrix-free (or densified).
 
-    The TPU analog of the reference's Tpetra CRS: never a global sparse
-    matrix — per-element dense blocks + index arrays. The scatter uses a
-    precomputed dof -> (element, local dof) incidence table so it lowers
-    to a fixed-fan-in GATHER + sum (XLA's TPU scatter serializes; the
-    reference needed Kokkos atomics here, assemblyManager.cpp:3956).
+    The analog of the reference's Tpetra CRS: never a global sparse
+    matrix — per-element dense blocks + index arrays. The volume
+    scatter uses a precomputed dof -> (element, local dof) incidence
+    table, a fixed-fan-in GATHER + sum with no atomics (the reference
+    needed Kokkos atomics here, assemblyManager.cpp:3956).
     """
-    vol: jax.Array | None             # (E, nd, nd) AoS (or None)
+    vol: jax.Array                    # (E, nd, nd)
     vol_lids: jax.Array               # (E, nd)
     bnd: list                         # list of (B, nd, nd)
     bnd_lids: list                    # list of (B, nd)
     fixed: jax.Array                  # (n_dof,) bool
     inc: jax.Array | None = None      # (n_dof, max_deg) into E*nd (+pad)
-    # Row layout straight off the fused Pallas kernel: a LIST of nd*nd
-    # entries, each None (structural zero), a 0-d scalar
-    # (element-independent — constant coefficients on a uniform mesh,
-    # the reference's compressed-database analog), or an (E,) array.
-    # The apply/diag hot paths consume it WITHOUT the (E, nd, nd)
-    # transpose; scalar rows cost no HBM traffic in the matvec at all.
-    # AoS-needing consumers call aos().
-    vol_soa: list | None = None
 
     @property
     def n_dof(self):
         return self.fixed.shape[0]
 
-    @property
-    def _soa_only(self):
-        return self.vol is None and self.vol_soa is not None
-
-    @property
-    def _n_elem(self):
-        return self.vol_lids.shape[0]
-
-    def _soa_dtype(self):
-        # Rows are always jnp arrays carrying a dtype (0-d scalars
-        # included — a fully constant-coefficient Jacobian must not
-        # fall back to float32 under x64).
-        for r in self.vol_soa:
-            if r is not None and hasattr(r, "dtype"):
-                return r.dtype
-        return jnp.zeros(0).dtype
-
-    def aos(self):
-        """(E, nd, nd) volume blocks, materializing constant/zero rows
-        from SoA if needed — use only in cold paths (dense, Schwarz,
-        MG setup)."""
-        if self.vol is not None:
-            return self.vol
-        nd = self.vol_lids.shape[1]
-        E = self._n_elem
-        dt = self._soa_dtype()
-        rows = jnp.stack([
-            jnp.zeros(E, dt) if r is None
-            else jnp.broadcast_to(jnp.asarray(r, dt), (E,))
-            for r in self.vol_soa])
-        return jnp.moveaxis(rows, 0, 1).reshape(-1, nd, nd)
-
-    def _soa_mv(self, vm):
-        """(E, nd) element products sum_j J[e,i,j]*vm[lids[e,j]] from
-        the SoA rows, no transpose; None rows skip their whole chain,
-        scalar rows fold into the multiply."""
-        nd = self.vol_lids.shape[1]
-        xg = [vm[self.vol_lids[:, j]] for j in range(nd)]
-        out = []
-        for i in range(nd):
-            terms = [self.vol_soa[i * nd + j] * xg[j]
-                     for j in range(nd)
-                     if self.vol_soa[i * nd + j] is not None]
-            out.append(sum(terms) if terms else jnp.zeros_like(xg[0]))
-        return jnp.stack(out, axis=1)
-
-    def _soa_mv_T(self, ve):
-        nd = self.vol_lids.shape[1]
-        vg = [ve[self.vol_lids[:, i]] for i in range(nd)]
-        out = []
-        for j in range(nd):
-            terms = [self.vol_soa[i * nd + j] * vg[i]
-                     for i in range(nd)
-                     if self.vol_soa[i * nd + j] is not None]
-            out.append(sum(terms) if terms else jnp.zeros_like(vg[0]))
-        return jnp.stack(out, axis=1)
-
     def _vol_mv(self, vm):
-        if self._soa_only:
-            return self._soa_mv(vm)
         return jnp.einsum("eij,ej->ei", self.vol, vm[self.vol_lids])
 
     def _vol_mv_T(self, ve):
-        if self._soa_only:
-            return self._soa_mv_T(ve)
         return jnp.einsum("eij,ei->ej", self.vol, ve[self.vol_lids])
 
     def _gather_sum(self, vals):
@@ -208,40 +133,32 @@ class BlockJacobian:
         return out + jnp.where(self.fixed, v, 0.0)
 
     def diag(self):
-        if self._soa_only:
-            nd = self.vol_lids.shape[1]
-            E = self._n_elem
-            dt = self._soa_dtype()
-            dblk = jnp.stack([
-                jnp.zeros(E, dt) if self.vol_soa[i * nd + i] is None
-                else jnp.broadcast_to(
-                    jnp.asarray(self.vol_soa[i * nd + i], dt), (E,))
-                for i in range(nd)], axis=1)
-        else:
-            dblk = _block_diag(self.vol)
-        d = self._gather_sum(dblk)
+        d = self._gather_sum(_block_diag(self.vol))
         for blocks, lids in zip(self.bnd, self.bnd_lids):
             d = d + _scatter_vec(_block_diag(blocks), lids, self.n_dof)
         return jnp.where(self.fixed, 1.0, d)
 
     def dense(self):
+        """Assembled (n, n) matrix, Dirichlet rows and columns replaced
+        by a unit diagonal. Dirichlet entries are masked in the element
+        blocks before the scatter and the diagonal is scattered in
+        place, so the result is the only n x n array built."""
         n = self.n_dof
-        vol = self.aos()
-        A = jnp.zeros((n, n), dtype=vol.dtype)
-        A = A.at[self.vol_lids[:, :, None],
-                 self.vol_lids[:, None, :]].add(vol)
-        for blocks, lids in zip(self.bnd, self.bnd_lids):
+        A = jnp.zeros((n, n), dtype=self.vol.dtype)
+        for blocks, lids in [(self.vol, self.vol_lids),
+                             *zip(self.bnd, self.bnd_lids)]:
+            live = ~self.fixed[lids]
+            blocks = jnp.where(live[:, :, None] & live[:, None, :],
+                               blocks, 0.0)
             A = A.at[lids[:, :, None], lids[:, None, :]].add(blocks)
-        mask = self.fixed[:, None] | self.fixed[None, :]
-        A = jnp.where(mask, 0.0, A)
-        A = A + jnp.diag(jnp.where(self.fixed, 1.0, 0.0))
-        # patch EMPTY ROWS (dofs no module touches, e.g. a variable
-        # outside its block under per-block physics) — reference:
-        # fixDiagJac, assemblyManager.cpp:2458. Zero diagonals with
-        # off-diagonal coupling (saddle points) are left alone.
+        # unit diagonal on Dirichlet rows and on EMPTY ROWS (dofs no
+        # module touches, e.g. a variable outside its block under
+        # per-block physics) — reference: fixDiagJac,
+        # assemblyManager.cpp:2458. Zero diagonals with off-diagonal
+        # coupling (saddle points) are left alone.
         empty = jnp.abs(A).sum(axis=1) == 0
-        A = A + jnp.diag(jnp.where(empty, 1.0, 0.0))
-        return A
+        i = jnp.arange(n)
+        return A.at[i, i].add(jnp.where(self.fixed | empty, 1.0, 0.0))
 
 
 def _block_diag(blocks):
@@ -288,8 +205,8 @@ def _fold_jac_WT_W(J, signs, mixp, mixwT):
 def build_incidence(lids: np.ndarray, n_dof: int) -> np.ndarray:
     """dof -> positions in lids.ravel() (padded with E*nd = zero slot).
 
-    Turns assembly scatter into a fixed-fan-in gather + sum — the
-    TPU-friendly dual of the reference's atomic scatter.
+    Turns assembly scatter into a fixed-fan-in gather + sum — a
+    deterministic dual of the reference's atomic scatter.
     """
     flat = np.asarray(lids).ravel()
     order = np.argsort(flat, kind="stable")
@@ -359,7 +276,7 @@ class Assembler:
         # element shares ONE geometry, so quadrature weights and physical
         # basis gradients are stored once and broadcast (vmap in_axes
         # None). XLA then lowers the basis contractions to batched
-        # (E,Q)x(Q,nd) matmuls on the MXU instead of per-element loads.
+        # (E,Q)x(Q,nd) matmuls instead of per-element loads.
         # rtol 1e-9: linspace node rounding accumulates ~1e-13
         # relative deviations at NX=512; genuinely non-uniform meshes
         # differ at O(1), so this stays a safe classifier
@@ -390,7 +307,7 @@ class Assembler:
                      "div": tbl(disc.div_vals),
                      "curl": tbl(disc.curl_vals)}
         # modules overriding face_residual get the per-side face loop
-        # inside the SAME vmapped element kernel (the TPU-native
+        # inside the SAME vmapped element kernel (the batched
         # collapse of the reference's 'assemble face terms' per-side
         # workset sweep, assemblyManager.cpp:2414-2425)
         from mrhyde_tpu.physics.base import PhysicsModule as _PB
@@ -527,11 +444,10 @@ class Assembler:
         self.jacobian_jit = jax.jit(self.jacobian)
 
     # ------------------------------------------------------------------
-    # structured-mesh fast path: on uniform box meshes with nodal p1 /
-    # HVOL variables, gather and scatter are pure slice/pad ops, which
-    # avoids XLA's serialized TPU gather/scatter entirely (the
-    # structured-mesh analog of the reference's basis database +
-    # workset tiling, SURVEY.md section 5.7)
+    # structured-mesh fast path: on box meshes with nodal p1 / HVOL
+    # variables, gather and scatter are pure slice/pad ops with no
+    # index arrays at all (the structured-mesh analog of the
+    # reference's basis database + workset tiling, SURVEY.md 5.7)
     # ------------------------------------------------------------------
 
     def _build_structured_index(self, disc):
@@ -555,17 +471,10 @@ class Assembler:
                 plan.append(("hvol", name, start))
             elif key == ("HGRAD", 1):
                 plan.append(("p1", name, start))
-            elif key == ("HGRAD", 2) and mesh.cell_type == "quad":
-                # parity-class node grids (docs/DESIGN_fused_p2.md):
-                # consumed ONLY by the fused TPU kernel — the general
-                # gather/scatter below stays p1/hvol (see "general")
-                plan.append(("p2", name, start))
             else:
                 return None
         return {"dims": dims, "corners": corners, "plan": plan,
-                "grid": [d + 1 for d in dims],
-                "general": all(k in ("p1", "hvol")
-                               for (k, _n, _st) in plan)}
+                "grid": [d + 1 for d in dims]}
 
     def _gather_structured(self, u):
         s = self._structured
@@ -788,7 +697,7 @@ class Assembler:
         else:
             mixp = mixw = None
         if lids is self.lids and self._structured is not None \
-                and self._structured["general"] and not self.has_signs:
+                and not self.has_signs:
             return (self._gather_structured(u_st),
                     self._gather_structured(tc.beta_u),
                     self._gather_structured(tc.beta_t))
@@ -810,8 +719,7 @@ class Assembler:
             u_e, bu_e, bt_e, self.g_wts, self.g_ip, self.g_bg, extra)
         if self.has_signs:
             res_e = _fold_WT(res_e, self.signs, self.mixp, self.mixwT)
-        if self._structured is not None \
-                and self._structured["general"] and not self.has_signs:
+        if self._structured is not None and not self.has_signs:
             r = self._scatter_structured(res_e)
         else:
             flat = jnp.concatenate([res_e.ravel(),
@@ -824,8 +732,7 @@ class Assembler:
 
     def _bnd_res_scatter(self, u_st, tc: TimeCoeffs, pvec=None):
         """Summed boundary-group residual contribution (n_dof,), zero
-        when no group is active. Additive to the volume residual, so
-        the fused volume kernel composes with it (res_and_jac)."""
+        when no group is active."""
         r = jnp.zeros(self.n_dof, dtype=u_st.dtype)
         for group in self._active_bnd_groups():
             u_b, bu_b, bt_b = self._gathered(u_st, tc, group["lids"],
@@ -848,53 +755,8 @@ class Assembler:
             r = r + _scatter_vec(res_b, group["lids"], self.n_dof)
         return r
 
-    def _fused_provider(self):
-        """Lazily-built fused Pallas assembly (ops/fused_p1.py), the
-        production fast path on TPU — the analog of the reference's
-        basis-database fast path being its production assembly
-        (assemblyManager.cpp:2356-2510). Returns (fused, interpret) or
-        (None, _). Built on first solve so late-attached state
-        (var_bcs, multiscale, field params) is respected.
-
-        Engagement policy: real (compiled) mode whenever the default
-        backend is TPU; on CPU only when MRHYDE_FUSED=1 (interpret mode
-        unrolls the tile grid at trace time — parity tests cover it,
-        but it is far too slow for production CPU runs).
-        """
-        if "_fused_cache" not in self.__dict__:
-            import os
-            backend = jax.default_backend()
-            interpret = backend != "tpu"
-            if interpret and os.environ.get("MRHYDE_FUSED") != "1":
-                self.__dict__["_fused_cache"] = (None, interpret)
-            else:
-                from mrhyde_tpu.ops.fused_p1 import FusedP1Assembly
-                f = FusedP1Assembly.build(self)
-                if f is not None and not f.available(interpret):
-                    f = None
-                self.__dict__["_fused_cache"] = (f, interpret)
-        return self.__dict__["_fused_cache"]
-
     def res_and_jac(self, u_st, tc: TimeCoeffs, pvec=None):
-        """(residual, BlockJacobian) in one pass — the Newton-loop
-        entry point. Uses the fused Pallas kernel when the problem
-        qualifies (uniform structured p1 HGRAD quad/hex, qp-density
-        physics, scalar-only params), else the general vmapped path."""
-        fused, interpret = self._fused_provider()
-        if fused is not None and all(
-                jnp.ndim(v) == 0 for v in (pvec or {}).values()):
-            self.fused_active = True
-            r, J = fused.jacobian(u_st, tc, pvec, interpret=interpret)
-            # boundary groups (Neumann/Robin/weak Dirichlet/...) are
-            # ADDITIVE contributions: assemble them on the general
-            # vmapped path and attach to the fused volume result
-            if self._active_bnd_groups():
-                rb = self._bnd_res_scatter(u_st, tc, pvec)
-                r = jnp.where(self.fixed, 0.0, r + rb)
-                bnd_blocks, bnd_lids = self._bnd_jac_parts(u_st, tc,
-                                                           pvec)
-                J = replace(J, bnd=bnd_blocks, bnd_lids=bnd_lids)
-            return r, J
+        """(residual, BlockJacobian) — the Newton-loop entry point."""
         return (self.residual(u_st, tc, pvec),
                 self.jacobian(u_st, tc, pvec))
 
@@ -924,8 +786,7 @@ class Assembler:
 
     def _bnd_jac_parts(self, u_st, tc: TimeCoeffs, pvec=None):
         """(bnd_blocks, bnd_lids) lists for the active boundary groups —
-        additive Jacobian contributions, so the fused volume kernel
-        composes with them (res_and_jac)."""
+        additive Jacobian contributions."""
         bnd_blocks, bnd_lids = [], []
         for group in self._active_bnd_groups():
             u_b, bu_b, bt_b = self._gathered(u_st, tc, group["lids"],
@@ -977,25 +838,13 @@ class Assembler:
         """v -> J v, using the structured slice path when available
         (drop-in faster replacement for BlockJacobian.apply inside
         Krylov loops)."""
-        if self._structured is None or self.has_signs \
-                or not self._structured["general"]:
+        if self._structured is None or self.has_signs:
             return J.apply
 
         def apply(v):
             vm = jnp.where(J.fixed, 0.0, v)
             ve = self._gather_structured(vm)
-            if J._soa_only:
-                nd = J.vol_lids.shape[1]
-                cols = []
-                for i in range(nd):
-                    terms = [J.vol_soa[i * nd + j] * ve[:, j]
-                             for j in range(nd)
-                             if J.vol_soa[i * nd + j] is not None]
-                    cols.append(sum(terms) if terms
-                                else jnp.zeros_like(ve[:, 0]))
-                prods = jnp.stack(cols, axis=1)
-            else:
-                prods = jnp.einsum("eij,ej->ei", J.vol, ve)
+            prods = jnp.einsum("eij,ej->ei", J.vol, ve)
             out = self._scatter_structured(prods)
             for blocks, lids in zip(J.bnd, J.bnd_lids):
                 out = out + _scatter_vec(

@@ -6,8 +6,8 @@ GroupMetaData + stored Group basis values (reference:
 src/interfaces/discretizationInterface.cpp, src/tools/groupMetaData.hpp),
 with one crucial difference: instead of workset-size chunks iterated
 serially (assemblyManager.cpp:2356 "Cannot parallelize over groups"),
-ALL elements live in one batched array so the TPU sees a single large
-contraction.
+ALL elements live in one batched array so the device sees a single
+large contraction.
 """
 
 from __future__ import annotations

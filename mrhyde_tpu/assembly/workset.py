@@ -1,6 +1,6 @@
 """Workset: the per-element view physics modules read from and write to.
 
-TPU-native analog of the reference Workset (src/tools/workset.hpp:22-588):
+JAX analog of the reference Workset (src/tools/workset.hpp:22-588):
 solution/gradient/time-derivative fields at quadrature points, basis
 tables, residual accumulation. One Workset instance exists per *traced
 element* inside vmap — all arrays here carry no element dimension, and

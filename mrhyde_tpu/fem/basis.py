@@ -1,10 +1,10 @@
 """Reference-element basis functions.
 
-The TPU-native replacement for the Intrepid2 basis factory the reference
+The JAX replacement for the Intrepid2 basis factory the reference
 wraps (reference: src/interfaces/discretizationInterface.cpp:354-430,
 getBasis). Bases are evaluated at setup time with numpy into dense
 (ndof, nqp[, dim]) tables that the traced compute path consumes as
-constants — on TPU the tables live in VMEM and feed MXU contractions.
+constants, so basis contractions compile to batched matmuls.
 
 Supported: HGRAD (nodal Lagrange) order 1..4 on line/quad/tri/hex/tet,
 HVOL (piecewise constant). HDIV/HCURL/HFACE are provided in

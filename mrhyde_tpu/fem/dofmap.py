@@ -1,6 +1,6 @@
 """DOF management: global numbering, element LIDs, offsets, boundary dofs.
 
-The TPU-native replacement for the Panzer DOFManager the reference builds
+The JAX replacement for the Panzer DOFManager the reference builds
 per physics set (reference: src/interfaces/discretizationInterface.cpp:2324
 buildDOFManagers; LID/offset layout described in SURVEY.md Appendix B).
 Everything is a static numpy index array produced at setup; assembly

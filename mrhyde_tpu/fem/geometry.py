@@ -1,10 +1,10 @@
 """Element geometry: Jacobians, measures, physical gradients, face data.
 
-TPU-native replacement for the reference's Intrepid2 CellTools geometry
+JAX replacement for the reference's Intrepid2 CellTools geometry
 path (reference: src/interfaces/discretizationInterface.cpp:781-836
 element Jacobians/measures; :882-1148 physical volumetric basis;
 :1432/:1795 face & boundary basis). All arrays are batched over elements
-so downstream contractions are MXU-friendly.
+so downstream contractions are batched matmuls.
 
 Everything here runs in numpy at setup time. For uniform structured
 meshes the per-element arrays are highly redundant; the basis-database

@@ -1,6 +1,6 @@
 """Vector-valued bases: HDIV (Raviart-Thomas) and HCURL (Nedelec), order 1.
 
-TPU-native replacement for the Intrepid2 HDIV/HCURL bases + orientation
+JAX replacement for the Intrepid2 HDIV/HCURL bases + orientation
 tools the reference relies on (reference:
 src/interfaces/discretizationInterface.cpp:354-430 basis factory, :1263
 orientations). Degrees of freedom:

@@ -1,6 +1,6 @@
 """FunctionManager: named user/physics expressions evaluated on worksets.
 
-TPU-native equivalent of the reference's FunctionManager + DAG + Vista
+JAX equivalent of the reference's FunctionManager + DAG + Vista
 stack (reference: src/managers/functionManager.cpp:48 addFunction,
 :544 evaluate; src/tools/dag.hpp; src/tools/vista.hpp). Expressions are
 parsed once at setup; evaluation happens inside the traced element

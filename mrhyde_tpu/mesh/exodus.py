@@ -1,6 +1,6 @@
 """Exodus II mesh/solution IO via scipy's NetCDF3 backend.
 
-TPU-native replacement for the reference's STK/SEACAS Exodus path
+JAX replacement for the reference's STK/SEACAS Exodus path
 (reference: src/interfaces/meshInterface.hpp:129-147 writeToExodus,
 Exodus file reading in meshInterface.cpp via 'source: Exodus').
 Exodus II "classic" files are NetCDF3, which scipy.io reads/writes

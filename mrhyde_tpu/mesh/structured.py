@@ -1,6 +1,6 @@
 """Structured box meshes (line/quad/tri/hex/tet).
 
-TPU-native replacement for the reference's inline Panzer-STK mesh
+JAX replacement for the reference's inline Panzer-STK mesh
 factories and SimpleMeshManager (reference:
 src/interfaces/meshInterface.cpp:15-140, src/tools/simplemeshmanager.hpp).
 All connectivity is built with numpy at setup time; the compute path only

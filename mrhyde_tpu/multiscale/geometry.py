@@ -1,6 +1,6 @@
 """Fine-mesh templates and per-macro-element subgrid geometry.
 
-The TPU-native analog of the reference's subgridTools fine-mesh
+The JAX analog of the reference's subgridTools fine-mesh
 generation (reference: src/subgrid/subgridTools.cpp — buildSubGridMesh
 maps a template mesh into every macro element via the macro geometric
 map). Here the template lives in the MACRO REFERENCE cell:

@@ -1,6 +1,6 @@
 """Multiscale subgrid model: vmapped Dirichlet-to-Neumann fine solves.
 
-TPU-native redesign of the reference's SubGridDtN/DtN2 machinery
+JAX redesign of the reference's SubGridDtN/DtN2 machinery
 (reference: src/subgrid/subgridDtN2.cpp, subgridDtN_solver.cpp:136
 solve, :1485 updateFlux; macro hookup at assemblyManager.cpp:2391 via
 MultiscaleManager::evaluateMacroMicroMacroMap):

@@ -1,6 +1,6 @@
 """ctypes loader for the native runtime library (native/src/).
 
-The TPU compute path is JAX/XLA/Pallas; the host-side runtime around it
+The compute path is JAX/XLA; the host-side runtime around it
 (DOF-graph entity numbering, data import nearest-point search, Exodus
 big-endian decode) has C++ implementations, mirroring the reference's
 native runtime (Panzer DOFManager graph build, data.cpp importer).

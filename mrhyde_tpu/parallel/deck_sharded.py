@@ -37,22 +37,17 @@ __all__ = ["ShardedNewton", "ReplicatedShardedNewton"]
 
 
 def _mesh_for(n_shards: int):
+    """Flat ("dp",) mesh over the first n_shards default devices. Too
+    few devices is an error, never a silent move to another platform
+    (on the CPU, provision virtual devices with XLA_FLAGS=
+    --xla_force_host_platform_device_count=N or the CLI's --cpu)."""
     from jax.sharding import Mesh
     devs = jax.devices()
     if len(devs) < n_shards:
-        try:
-            cpu = jax.devices("cpu")
-        except RuntimeError:
-            cpu = []
-        if len(cpu) >= n_shards:
-            devs = cpu
-        else:
-            raise RuntimeError(
-                f"Solver: shards: {n_shards} needs {n_shards} devices; "
-                f"found {len(devs)} ({devs[0].platform}) and "
-                f"{len(cpu)} cpu. Launch with XLA_FLAGS="
-                f"--xla_force_host_platform_device_count={n_shards} "
-                f"(the CLI --shards flag does this automatically).")
+        raise RuntimeError(
+            f"Solver: shards: {n_shards} needs {n_shards} devices; found "
+            f"{len(devs)}: "
+            + ", ".join(f"{d.platform}:{d.device_kind}" for d in devs))
     return Mesh(np.array(devs[:n_shards]), ("dp",))
 
 

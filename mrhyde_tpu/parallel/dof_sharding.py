@@ -1,6 +1,6 @@
 """Distribution v2: DOF-sharded assembly with explicit halo exchange.
 
-The TPU-native equivalent of the reference's owned/overlapped Tpetra
+The JAX equivalent of the reference's owned/overlapped Tpetra
 maps + Import/Export (reference: src/interfaces/linearAlgebraInterface
 .cpp:145-309 builds the maps; exportVectorFromOverlapped /
 importVectorToOverlapped used around assembly and solve at

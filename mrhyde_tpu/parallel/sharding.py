@@ -1,6 +1,6 @@
 """Multi-chip distribution via jax.sharding over a device Mesh.
 
-TPU-native replacement for the reference's MPI domain decomposition +
+JAX replacement for the reference's MPI domain decomposition +
 Tpetra owned/overlapped Import/Export (reference:
 src/interfaces/linearAlgebraInterface.cpp:145-309, SURVEY.md section
 2.10): elements are sharded across the 'dp' mesh axis (spatial domain

@@ -1,6 +1,6 @@
 """Physics module base class.
 
-TPU-native analog of PhysicsBase<EvalT> (reference:
+JAX analog of PhysicsBase<EvalT> (reference:
 src/physics/physicsBase.hpp:29-211). Modules are stateless residual
 definitions: they read solution/function fields from a Workset and
 accumulate weak-form contributions. They never see meshes, dof maps, or

@@ -38,16 +38,6 @@ class CDR(PhysicsModule):
         fm.add_function("robin alpha", self._f(fs, "robin alpha", 0.0),
                         "side ip")
 
-    def qp_density(self, q):
-        """Per-qp (source, flux) densities for the fused Pallas kernel
-        (ops/fused_p1.py) — same weak form as volume_residual."""
-        g = q.grad("c")
-        adv = sum(q.f(vn) * g[d] for d, vn in
-                  enumerate(("xvel", "yvel", "zvel")[:self.dim]))
-        S = q.sol_dot("c") + adv + q.f("reaction") - q.f("source")
-        dcoef = q.f("diffusion") / (q.f("density") * q.f("specific heat"))
-        return {"c": (S, [dcoef * g[d] for d in range(self.dim)])}
-
     def volume_residual(self, wk):
         source = wk.f("source")
         diff = wk.f("diffusion")

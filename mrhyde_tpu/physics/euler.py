@@ -13,7 +13,7 @@ computeStabilizationTerm, :965-1085):
     "max EV stabilization":    Stab = lambda_max I   at S_hat
 The reference refuses to run without one (euler.cpp:61-65); so do we.
 
-TPU-native design: the reference reads S_hat from the aux/mortar
+Design: the reference reads S_hat from the aux/mortar
 machinery (only reachable through the multiscale solver); here the
 traces are first-class HFACE variables and the whole scheme —
 volume terms, per-side numerical fluxes (faceResidual), and the trace

@@ -55,54 +55,6 @@ class NavierStokes(PhysicsModule):
               + (c3 / wk.deltat) ** 2)
         return 1.0 / jnp.sqrt(t2)
 
-    def qp_density(self, q):
-        """Per-qp (source, flux) densities for the fused Pallas kernel
-        (ops/fused_p1.py) — same weak form as volume_residual."""
-        dim = self.dim
-        vels = _VELS[:dim]
-        rho = q.f("density")
-        visc = q.f("viscosity")
-        pr = q.sol("pr")
-        u = {v: q.sol(v) for v in vels}
-        ud = {v: q.sol_dot(v) for v in vels}
-        g = {v: q.grad(v) for v in vels}
-        src = {v: q.f(f"source {v}") for v in vels}
-        conv = {v: sum(u[w] * g[v][d] for d, w in enumerate(vels))
-                for v in vels}
-        # Boussinesq buoyancy when 'e' shares the set (mirrors
-        # volume_residual's have_energy term so the fused and general
-        # paths agree)
-        buoy = None
-        if "e" in getattr(q, "_u", {}):
-            t_amb = float(self.settings.get("T_ambient", 0.0))
-            beta = float(self.settings.get("beta", 1.0))
-            buoy = rho * beta * (q.sol("e") - t_amb)
-        out = {}
-        for d, v in enumerate(vels):
-            F = [visc * g[v][k] for k in range(dim)]
-            F[d] = F[d] - pr
-            extra = buoy * src[v] if buoy is not None else 0.0
-            out[v] = (rho * (ud[v] + conv[v] - src[v]) + extra, F)
-        divu = sum(g[v][d] for d, v in enumerate(vels))
-        Fpr = None
-        if self.use_supg or self.use_pspg:
-            u2 = sum(u[v] * u[v] for v in vels)
-            tau = self._tau(visc, u2, q)
-            gp = q.grad("pr")
-            stab = {v: (rho * ud[v] + rho * conv[v] + gp[d]
-                        - rho * src[v]
-                        + (buoy * src[v] if buoy is not None else 0.0))
-                    for d, v in enumerate(vels)}
-        if self.use_supg:
-            for v in vels:
-                S, F = out[v]
-                out[v] = (S, [F[d] + tau * stab[v] * u[vels[d]]
-                              for d in range(dim)])
-        if self.use_pspg:
-            Fpr = [tau * stab[v] / rho for v in vels]
-        out["pr"] = (divu, Fpr)
-        return out
-
     def volume_residual(self, wk):
         dim = self.dim
         rho = wk.qp(wk.f("density"))

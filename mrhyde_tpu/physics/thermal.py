@@ -64,18 +64,6 @@ class Thermal(PhysicsModule):
         wk.add_source("e", sval)
         wk.add_flux("e", wk.qp(kappa)[:, None] * gradT)
 
-    def qp_density(self, q):
-        """Per-qp (source, flux) densities for the fused Pallas kernel
-        (ops/fused_p1.py) — same weak form as volume_residual."""
-        sval = q.f("density") * q.f("specific heat") * q.sol_dot("e") \
-            - q.f("thermal source")
-        g = q.grad("e")
-        if self.have_advection:
-            for d, bn in enumerate(("bx", "by", "bz")[:self.dim]):
-                sval = sval + q.f(bn) * g[d]
-        kap = q.f("thermal diffusion")
-        return {"e": (sval, [kap * g[d] for d in range(self.dim)])}
-
     def boundary_residual(self, wk):
         bctype = wk.bcs.get("e")
         if bctype == "Neumann":

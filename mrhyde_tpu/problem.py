@@ -1,6 +1,6 @@
 """Problem: wires config -> mesh -> physics -> assembly -> solve -> report.
 
-The TPU-native equivalent of the reference driver + manager construction
+The JAX equivalent of the reference driver + manager construction
 sequence (reference: src/driver.cpp:62-212) and the forward paths of
 SolverManager (solverManager.cpp:1107 forwardModel, :1156 steadySolver,
 :1229 transientSolver) and AnalysisManager (analysisManager.cpp:62-95).
@@ -326,6 +326,8 @@ class Problem:
         self.shards = int(self.solver_cfg.get(
             "shards", _os.environ.get("MRHYDE_SHARDS", 0)) or 0)
         self._sharded_newton = None
+        # NewtonResult of the last steady solve (iterations, norms)
+        self.newton_result = None
 
         self.integrated_quantities = None
         if pp_cfg.get("compute integrated quantities", False):
@@ -601,11 +603,11 @@ class Problem:
             # gives ranks tiny overlaps); here the ring invariant is
             # structural, so halve until the partition is valid and
             # say so. 1 shard -> the ordinary single-program path.
-            shards = self.shards
+            # self.shards ends as the EFFECTIVE count.
             while True:
                 try:
                     self._sharded_newton = cls(
-                        self.assembler, shards,
+                        self.assembler, self.shards,
                         cg_iters=int(self.solver_cfg.get(
                             "max linear iters", 200)),
                         gmres_m=int(self.solver_cfg.get(
@@ -616,10 +618,11 @@ class Problem:
                 except ValueError as e:
                     if "non-neighbor shards" not in str(e):
                         raise
-                    shards //= 2
+                    failed = self.shards
+                    self.shards //= 2
                     print(f"[mrhyde] mesh too small for the halo ring "
-                          f"at {shards * 2} shards; using {shards}")
-                    if shards <= 1:
+                          f"at {failed} shards; using {self.shards}")
+                    if self.shards <= 1:
                         self.shards = 1
                         return newton_solve
         return self._sharded_newton
@@ -638,6 +641,7 @@ class Problem:
             precond_variant=self._precond_variant(),
             backtracking=bool(self.solver_cfg.get("allow backtracking",
                                                   True)))
+        self.newton_result = result
         out = ForwardResult(u=result.u, time=0.0)
         if record and self.compute_errors:
             errs = self.error_calc.compute(result.u, 0.0)

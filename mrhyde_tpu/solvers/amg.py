@@ -1,6 +1,6 @@
 """Algebraic multigrid for unstructured meshes (aggregation-based).
 
-TPU-native analog of the reference's MueLu AMG option
+JAX analog of the reference's MueLu AMG option
 (linearAlgebraInterface.cpp:358-430 builds a MueLu hierarchy when the
 deck asks for multigrid-class preconditioning); StructuredMG
 (solvers/multigrid.py) covers structured quad/hex grids, this covers
@@ -133,7 +133,7 @@ class AggregationAMG:
     def _masked_vol(self, J):
         """Element blocks with fixed rows/cols zeroed (the V-cycle
         corrects only free dofs; fine fixed rows ride the identity)."""
-        vol = J.aos()
+        vol = J.vol
         fe = J.fixed[J.vol_lids]                       # (E, nd)
         mask = (~fe[:, :, None]) & (~fe[:, None, :])
         vol = jnp.where(mask, vol, 0.0)

@@ -1,9 +1,8 @@
-"""Hand-rolled fixed-shape Krylov solvers for the TPU hot path.
+"""Hand-rolled fixed-shape Krylov solvers for the solve hot path.
 
-jax.scipy.sparse.linalg.gmres spends ~300 ms/iteration of pure
-overhead on the TPU (dynamic-slice-heavy Arnoldi bookkeeping); these
-replacements keep every iteration to a handful of elementwise ops,
-vdots and the user matvec. They are the production linear solvers
+These keep every iteration to a handful of elementwise ops, vdots and
+the user matvec, with none of the dynamic-slice-heavy Arnoldi
+bookkeeping of jax.scipy.sparse.linalg.gmres. They are the production linear solvers
 behind the matrix-free Newton (reference counterpart: the Belos
 Block-GMRES/BiCGStab instantiations, linearAlgebraInterface.cpp:358-500).
 
@@ -149,11 +148,10 @@ def gmres_fixed(matvec, b, *, m=40, precond=None, x0=None):
     """GMRES(m), one fixed-length cycle: scan-built Arnoldi basis, then
     ONE QR-based least squares on the (m+1, m) Hessenberg.
 
-    TPU-shaped: the per-iteration work is a matvec + two vdots under
-    `lax.scan` (no data-dependent exit, no sequential Givens scalar
-    recurrences — those are latency-bound on this hardware), and the
-    tiny LS solve happens once via jnp.linalg.lstsq (QR — NOT the
-    normal equations, which squared the Hessenberg conditioning).
+    The per-iteration work is a matvec + two vdots under `lax.scan`
+    (no data-dependent exit, no sequential Givens scalar recurrences),
+    and the tiny LS solve happens once via jnp.linalg.lstsq (QR — NOT
+    the normal equations, which squared the Hessenberg conditioning).
     Use `gmres` when a convergence check is needed."""
     M = precond if precond is not None else (lambda v: v)
     x0 = jnp.zeros_like(b) if x0 is None else x0

@@ -1,6 +1,6 @@
 """Linear solvers: matrix-free Krylov + small dense direct.
 
-TPU-native replacement for the reference's Belos/MueLu/Ifpack2/Amesos2
+JAX replacement for the reference's Belos/MueLu/Ifpack2/Amesos2
 stack (reference: src/interfaces/linearAlgebraInterface.cpp:358-500
 linearSolver; per-system-class options hpp:475-513). Krylov methods
 operate on BlockJacobian.apply (gather + batched einsum + segment-sum);
@@ -15,7 +15,6 @@ solve_linear keeps the x-only signature.
 
 from __future__ import annotations
 
-import jax
 import jax.numpy as jnp
 import jax.scipy.sparse.linalg as jsla
 
@@ -65,28 +64,8 @@ class LinearOptions:
 
 
 def solve_dense(J, b):
-    A = J.dense()
-    if A.dtype == jnp.float64 and jax.default_backend() == "tpu":
-        # XLA:TPU has no f64 LuDecomposition (a --fp64 deck run dies
-        # in a raw INTERNAL error at deck scale): factor in f32 on the
-        # MXU and recover double accuracy with iterative refinement
-        # (the standard mixed-precision direct-solve recipe — each
-        # sweep contracts the error by ~eps32*kappa, and the residual
-        # b - A x is evaluated in (emulated) f64). Reference contract:
-        # Amesos2 KLU direct solves run at full double precision
-        # (linearAlgebraInterface.cpp:358-500).
-        import jax.scipy.linalg as jsl
-        lu, piv = jsl.lu_factor(A.astype(jnp.float32))
-
-        def solve32(r):
-            return jsl.lu_solve((lu, piv),
-                                r.astype(jnp.float32)).astype(A.dtype)
-
-        x = solve32(b)
-        x = jax.lax.fori_loop(
-            0, 6, lambda _, x: x + solve32(b - A @ x), x)
-        return x
-    return jnp.linalg.solve(A, b)
+    """Dense LU solve in the working precision (Amesos2 KLU analog)."""
+    return jnp.linalg.solve(J.dense(), b)
 
 
 def solve_cg(J, b, tol=1e-12, maxiter=1000, precond_variant="jacobi"):

@@ -1,6 +1,6 @@
 """Geometric multigrid preconditioner for structured p1 meshes.
 
-The TPU-native analog of the reference's MueLu AMG preconditioner
+The JAX analog of the reference's MueLu AMG preconditioner
 (reference: src/interfaces/linearAlgebraInterface.cpp:358-430 builds
 MueLu with SA defaults / Chebyshev smoothing). On structured quad/hex
 meshes with p1 HGRAD variables there is no need for algebraic
@@ -12,7 +12,7 @@ blocks:
 
     A_C[ce] = sum_{sub} P_sub^T A_f[fine(ce, sub)] P_sub
 
-a single batched (Ec, 2^dim, nd, nd) einsum per level — MXU work, no
+a single batched (Ec, 2^dim, nd, nd) einsum per level — no
 sparse matrices anywhere. The coarsest level is factored dense (LU)
 once per Jacobian; smoothing is damped Jacobi. The whole V-cycle traces
 into the caller's jitted Newton step.
@@ -189,7 +189,7 @@ class StructuredMG:
     def _fold_boundary(self, J):
         """Add boundary-group Jacobian blocks into a copy of the volume
         blocks (groups share the owning element's dof set)."""
-        vol = J.aos()
+        vol = J.vol
         if not J.bnd:
             return vol
         disc_groups = list(self.asm.disc.boundary_groups)

@@ -1,6 +1,6 @@
 """Preconditioners for the matrix-free Krylov solvers.
 
-TPU-native stand-ins for the reference's Ifpack2/MueLu choices
+JAX stand-ins for the reference's Ifpack2/MueLu choices
 (reference: src/interfaces/linearAlgebraInterface.cpp:358-500 builds
 MueLu AMG, Ifpack2 RELAXATION (Jacobi), CHEBYSHEV, or SCHWARZ
 per system class; hpp:475-513). Each builder takes the assembler's
@@ -15,7 +15,7 @@ preconditioner of solvers/krylov.py:
               of the per-element Jacobian blocks, combined with
               1/multiplicity weights (Ifpack2 SCHWARZ domain
               decomposition analog; the "subdomains" are elements,
-              which is the natural TPU tile and lowers to one batched
+              which lowers to one batched
               (E, nd, nd) inverse + gather/einsum/segment-sum)
 
 All of them trace into the caller's jitted program: no host round
@@ -43,19 +43,7 @@ def _gershgorin_lmax(J, dinv):
     (Power iteration UNDER-estimates on clustered spectra and makes
     Chebyshev divergent on the top modes; a guaranteed bound only costs
     a slightly smaller effective degree.)"""
-    if J.vol is None:                        # row-list fused layout
-        nd = J.vol_lids.shape[1]
-        E = J.vol_lids.shape[0]
-        dt = J._soa_dtype()
-        rows_e = []
-        for i in range(nd):
-            terms = [jnp.abs(J.vol_soa[i * nd + j]) for j in range(nd)
-                     if J.vol_soa[i * nd + j] is not None]
-            s = sum(terms) if terms else 0.0
-            rows_e.append(jnp.broadcast_to(jnp.asarray(s, dt), (E,)))
-        row_e = jnp.stack(rows_e, axis=1)
-    else:
-        row_e = jnp.abs(J.vol).sum(axis=2)
+    row_e = jnp.abs(J.vol).sum(axis=2)
     rows = jax.ops.segment_sum(
         row_e.ravel(), J.vol_lids.ravel(),
         num_segments=J.n_dof)
@@ -121,7 +109,7 @@ def element_schwarz_precond(J, damping=1.0):
     """
     lids = J.vol_lids                               # (E, nd)
     fixed_e = J.fixed[lids]                         # (E, nd) bool
-    vol = J.aos()
+    vol = J.vol
     eye = jnp.eye(vol.shape[1], dtype=vol.dtype)
     mask = (~fixed_e[:, :, None]) & (~fixed_e[:, None, :])
     blocks = jnp.where(mask, vol, 0.0)
@@ -136,7 +124,7 @@ def element_schwarz_precond(J, damping=1.0):
     d_asm = J.diag()[lids]                            # (E, nd)
     use = (~fixed_e) & (d_asm != 0)
     blocks = blocks + eye * jnp.where(use, d_asm - d_elem, 0.0)[:, :, None]
-    inv = jnp.linalg.inv(blocks)                    # batched, MXU work
+    inv = jnp.linalg.inv(blocks)                    # batched
     # guard: singular element blocks (hybridized trace methods can
     # produce them) fall back to the block's diagonal inverse rather
     # than poisoning the whole preconditioner with NaNs

@@ -3,7 +3,7 @@
 The analog of the reference's Teuchos::TimeMonitor counters
 (reference: src/driver.cpp:41-42, 217-229 — `profile: true` writes
 MrHyDE.profile). Wall-clock accumulators per named scope plus optional
-jax.profiler trace capture for TPU work.
+jax.profiler trace capture of device work.
 """
 
 from __future__ import annotations

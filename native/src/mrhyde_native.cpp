@@ -1,6 +1,6 @@
 // Native runtime kernels for the mrhyde_tpu setup/IO path.
 //
-// The TPU compute path is JAX/XLA/Pallas; this library covers the
+// The compute path is JAX/XLA; this library covers the
 // host-side runtime work the reference implements natively (its
 // Panzer DOFManager graph build, data importer, and Exodus decode):
 //

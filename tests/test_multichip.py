@@ -26,10 +26,11 @@ def test_dryrun_multichip_after_backend_init():
 
 @pytest.mark.slow
 def test_dryrun_multichip_ignores_hostile_env(monkeypatch):
-    """Env pointing at a broken TPU must be scrubbed by the subprocess
-    launcher (the r02 failure was a version-skewed libtpu client)."""
-    monkeypatch.setenv("JAX_PLATFORMS", "tpu")
-    monkeypatch.setenv("TPU_LIBRARY_PATH", "/nonexistent/libtpu.so")
+    """Env pointing at an absent accelerator plugin must be scrubbed by
+    the subprocess launcher."""
+    monkeypatch.setenv("JAX_PLATFORMS", "cuda")
+    monkeypatch.setenv("PJRT_NAMES_AND_LIBRARY_PATHS",
+                       "cuda:/nonexistent/plugin.so")
     import __graft_entry__ as ge
     ge.dryrun_multichip(2)
 

@@ -3,7 +3,7 @@
 item 6): thermal on eblock-0_0 and CDR on eblock-1_0 of one two-block
 mesh, solved together, per-block errors reported.
 
-TPU design: ONE batched element array; each module's volume
+Design: ONE batched element array; each module's volume
 contribution is scaled by a static (E,) block mask — branch-free
 dispatch, no ragged per-block loops.
 """
